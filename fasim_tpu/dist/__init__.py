@@ -9,11 +9,11 @@ framework's own design:
   * ``rule`` — "expert"-style axis over the 48 pairing-rule transforms of
     each segment (embarrassingly parallel).
 
-The production single-process multi-chip path does not use a mesh at all:
+The production single-process multi-card path does not use a mesh at all:
 batches round-robin across per-device engines (scan/batched.py) because
 the work is embarrassingly parallel and needs no collectives.  The mesh
 step here is the collective-free sharded expression of the same scan for
-pjit-style deployments and the multi-chip dry run.
+pjit-style deployments; the tests run it on a virtual CPU mesh.
 
 The device-side step is pure XLA (kernels/xla.py) so it partitions with
 sharding annotations alone — no hand-written collectives are needed until
@@ -54,7 +54,7 @@ def make_mesh(n_seg: int = 0, n_rule: int = 1, devices=None) -> Mesh:
 
 
 def byte_break(colmax: jax.Array) -> jax.Array:
-    """Device-side equivalent of kernels.tpu.apply_byte_break
+    """Device-side equivalent of kernels.common.apply_byte_break
     (sswNew.cpp:384-386): zero from the first column max >= 251 on."""
     n = colmax.shape[-1]
     sat = colmax >= BYTE_SAT

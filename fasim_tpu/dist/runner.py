@@ -1,8 +1,10 @@
 """Multi-host distributed scan runner.
 
 The reference is single-process (SURVEY.md §2.b); this is the framework's
-own scaling design: every process (host) *streams* the DNA records (one
-in memory at a time), takes a round-robin shard of the global
+own scaling design: one process per host drives all of that host's cards
+(its engines round-robin batches over them, as the single-host driver
+does).  Every process *streams* the DNA records (one in memory at a
+time), takes a round-robin shard of the global
 (record, segment) work stream, scans it on its local devices through the
 bounded-window driver, and the hit lists are allgathered and merged in
 global work order — so the merged result is bit-identical to a
@@ -12,9 +14,9 @@ Clustering and output run on process 0 only (they are global over the
 RNA axis, Fasim-LongTarget.cpp:812).
 
 Collectives: two `process_allgather` rounds (hit-payload lengths, then
-padded payloads) over jax.distributed — ICI within a slice, DCN across
-hosts.  Hit payloads are tiny (triplex records, not colmax arrays), so
-this gather is latency- not bandwidth-bound.
+padded payloads) over jax.distributed.  Hit payloads are tiny (triplex
+records, not colmax arrays), so this gather is latency- not
+bandwidth-bound.
 
 Checkpoint/resume (SURVEY.md §5): with `checkpoint_dir` set, each host
 spills a pickle per `checkpoint_every` finished work items; a restarted
@@ -88,8 +90,9 @@ def scan_distributed(p: Params, engine_factory, batch_pairs: int = 32,
     elsewhere — record_metas are `RecordMeta` (headers + lengths only;
     sequences are never held beyond the current record).
 
-    engine_factory(rna) builds the local scan engine (TpuScanEngine /
-    XlaScanEngine) — constructed after the query is read.
+    engine_factory(rna) builds the local scan engines (a list of
+    XlaScanEngine, one per local device) — constructed after the query
+    is read.
     """
     import jax
 
@@ -197,9 +200,9 @@ def scan_distributed(p: Params, engine_factory, batch_pairs: int = 32,
 def main(argv=None) -> int:
     """Process entry: initialize jax.distributed from env/flags and run.
 
-    Env: FASIM_COORD (host:port), FASIM_NPROC, FASIM_PID select loopback /
-    cluster topology explicitly; absent, jax.distributed auto-detection
-    applies (TPU pods).
+    Env: FASIM_COORD (host:port), FASIM_NPROC, FASIM_PID give the
+    cluster topology (nothing on a GPU host describes it); without
+    FASIM_COORD the runner is one process driving every local card.
     """
     import sys
 
@@ -207,6 +210,7 @@ def main(argv=None) -> int:
 
     from ..cli import make_engine, parse_args
     from ..post.output import print_result
+    from ..runtime import enable_compile_cache
 
     if os.environ.get("FASIM_CPU_PIN"):
         # scaling harness: pin each loopback worker to one core so the
@@ -215,18 +219,17 @@ def main(argv=None) -> int:
         ncpu = os.cpu_count() or 1
         os.sched_setaffinity(
             0, {int(os.environ.get("FASIM_PID", "0")) % ncpu})
-    p, tpu = parse_args(sys.argv[1:] if argv is None else argv)
+    p, cfg = parse_args(sys.argv[1:] if argv is None else argv)
+    enable_compile_cache()
     coord = os.environ.get("FASIM_COORD")
     if coord:
         jax.distributed.initialize(
             coordinator_address=coord,
             num_processes=int(os.environ["FASIM_NPROC"]),
             process_id=int(os.environ["FASIM_PID"]))
-    else:
-        jax.distributed.initialize()
     host_threads = int(os.environ.get("FASIM_HOST_THREADS", "0"))
     reps = int(os.environ.get("FASIM_SCALING_REPS", "1"))
-    engine_factory = lambda r: make_engine(tpu, r)  # noqa: E731
+    engine_factory = lambda r: make_engine(cfg, r)  # noqa: E731
     for rep in range(reps):
         # scaling harness: repeat the scan so rep > 0 measures the warm
         # (compile-amortized) steady state; results are identical
@@ -234,10 +237,10 @@ def main(argv=None) -> int:
 
         t0 = _time.time()
         records, lnc_name, rna, all_t = scan_distributed(
-            p, engine_factory, batch_pairs=tpu.segments_per_batch,
+            p, engine_factory, batch_pairs=cfg.segments_per_batch,
             host_threads=host_threads,
             checkpoint_dir=(os.environ.get("FASIM_CKPT") or None)
-            if reps == 1 else None, max_inflight=tpu.max_inflight)
+            if reps == 1 else None, max_inflight=cfg.max_inflight)
         if reps > 1:
             # every process reports: the harness attributes efficiency
             # loss to load imbalance (local spread) vs gather overhead

@@ -5,7 +5,7 @@ threshold-pass global max (stats.h calc_score_once) and the scan-pass column
 maxima (sswNew.cpp sw_sse2_byte_once) by carrying the DP column state with a
 leading transform axis.  Bit-identical to the scalar golden kernels in
 `ref.py` (same recurrence, same byte-break rule), just vectorized; the
-Pallas TPU engine replaces this with the same contract.
+device engine (kernels/xla.py) replaces this with the same contract.
 
 Contract (engines are swappable):
     thresh, colmax = engine(rna_u8, seq2_list)

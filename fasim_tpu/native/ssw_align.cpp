@@ -17,7 +17,7 @@
 //     (ssw_cpp.cpp:627-633).
 //
 // This stage runs on host per candidate (<=50 per segment x transform);
-// the heavy whole-segment passes run on TPU.
+// the heavy whole-segment passes run on the device (kernels/xla.py).
 //
 // Build: g++ -O2 -fPIC -shared ssw_align.cpp -o _ssw_align.so
 

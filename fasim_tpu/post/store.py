@@ -12,7 +12,8 @@ O(numeric columns), independent of alignment-string volume.
 
 Semantics are pinned to post/output.py's object implementation
 (cluster_triplex / write_tfosorted quirk catalogue); outputs are
-byte-identical (tests/test_store.py runs both paths on the same hits).
+byte-identical (tests/test_batched_driver.py runs both paths on the same
+input).
 """
 
 from __future__ import annotations

@@ -2,9 +2,8 @@
 
 The candidate stage (fastsim.h:158-289) re-aligns the full query against a
 short window around every above-threshold colmax peak — at genome scale
-that is hundreds of thousands of (query x ~200 bp) DP passes and was the
-measured host bottleneck (123 busy-seconds vs 7 device-seconds on
-MEG3-full).  This module moves the two hot passes of each candidate
+that is hundreds of thousands of (query x ~200 bp) DP passes, far more
+than the host can run next to the device scan.  This module moves the two hot passes of each candidate
 alignment (the forward end-finding and reverse begin-finding striped
 passes, sswNew.cpp:1446-1547) onto the device as batched window passes
 (SURVEY.md §2.a row 3), leaving on host only:
@@ -13,10 +12,9 @@ passes, sswNew.cpp:1446-1547) onto the device as batched window passes
   * the Iden-sweep bookkeeping, vectorized in NumPy,
   * banded_sw traceback + convertMyTriplex + dedup (native, tiny).
 
-The device interface is transfer-minimal (the TPU may sit behind a slow
-link): per window row ~26 B of specs go in (the codes are gathered on
-device from the batch's resident segment bytes + scan LUTs) and 12 B of
-(best, end_col, end_row) come out, reduced on device.
+Per window row the engine builds the window's codes on the host from the
+batch's segment bytes + scan LUTs (`xla.build_window_codes`), and 12 B
+of (best, end_col, end_row) come back, reduced on the device.
 
 Key exactness facts this relies on (tested in tests/test_window_pass.py):
 
@@ -141,13 +139,13 @@ def candidate_stage_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
                           packed, eng, pool, cm_fallback=None) -> list:
     """Run the candidate stage for one device batch.  batch is the list
     of _Work items; segs/lengths the batch's padded device-input arrays;
-    gm int32[B, K]; cm_get(i) lazily yields segment i's full uint8[K, N]
-    colmax rows (a host array slice or a device fetch); packed is the
-    device-compacted (pos, val, cnt) candidate triple or None.  Returns a
+    gm int32[B, K]; cm_get(i) yields segment i's full uint8[K, N]
+    colmax rows; packed is the compacted (pos, val, cnt) candidate
+    triple (common.pack_candidates_np) or None.  Returns a
     list of (work item, future -> [Triplex]) in batch order.
 
     Device window passes run on the caller thread (the driver runs one
-    thread per in-flight batch to overlap link latency); the final
+    thread per in-flight batch, so batches overlap); the final
     banded/convert/dedup per segment runs on the thread pool.
     """
     K = len(meta.scans)
@@ -160,19 +158,8 @@ def candidate_stage_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
             kp = packed[0].shape[2]
             over = np.argwhere(packed[2] > kp)  # (n, 2): seg, scan
             if len(over):
-                # one batched device gather for every overflowing pair
-                # (per-pair fetches would pay a link round trip each);
-                # indices pad to a fixed bucket so the gather compiles
-                # once, not per overflow count
-                nov = len(over)
-                bucket = 16
-                while bucket < nov:
-                    bucket *= 2
-                oi = np.zeros(bucket, np.int64)
-                ok = np.zeros(bucket, np.int64)
-                oi[:nov] = over[:, 0]
-                ok[:nov] = over[:, 1]
-                fetched = cm_get((oi, ok))[:nov]
+                # one batched gather for every overflowing pair
+                fetched = cm_get((over[:, 0], over[:, 1]))
                 for (i, k), row in zip(over, fetched):
                     over_rows[(int(i), int(k))] = row
         peak_parts = []
@@ -236,7 +223,7 @@ def candidate_stage_batch(p: Params, rna: np.ndarray, q_idx: np.ndarray,
     # 2. Iden sweep in two speculative phases: round 0 for every peak
     # (most peaks accept there — the Iden=0.6 window is the widest), then
     # every remaining distinct (peak, cutlength) window of the
-    # non-accepting peaks in ONE second dispatch.  Two link round trips
+    # non-accepting peaks in ONE second dispatch.  Two device round trips
     # per batch regardless of sweep depth — the lazy per-round dispatch
     # paid up to nr — while skipping ~60% of the device work a fully
     # speculative all-rounds dispatch would waste on accepted peaks.

@@ -3,7 +3,7 @@
 Reproduces LongTarget (Fasim-LongTarget.cpp:379-598) + fastSIM
 (fastsim.h:158-289) + convertMyTriplex (fastsim.h:291-414) semantics exactly.
 The two hot DP passes are delegated to a swappable engine (NumPy golden or
-TPU); everything candidate-level runs on host.
+the device engine); everything candidate-level runs on host.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 // Oracle-only instrumentation harness. Compiles AGAINST the read-only
 // reference tree (never shipped, never imported by the framework) to dump
 // intermediate values of the reference kernels so the framework's golden
-// model and TPU kernels can be validated bit-for-bit.
+// model and device kernels can be validated bit-for-bit.
 //
 // Build (see oracle/build.sh):
 //   g++ -O2 -msse2 -I/root/reference harness.cpp \

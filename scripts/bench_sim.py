@@ -2,7 +2,7 @@
 
 Times the native SIM engine (forward scan + extraction) on one
 (segment, transform) pair at a realistic shape and reports cell rate;
-also times a small all-transforms segment scan.  Host-only (no TPU).
+also times a small all-transforms segment scan.  Host-only (no device).
 
     python scripts/bench_sim.py [--m=1582] [--n=5128] [--round=4]
 """

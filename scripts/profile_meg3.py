@@ -2,7 +2,7 @@
 
 Runs the batched driver's stages by hand with everything synchronous
 (one batch at a time, blocking after each device call) so each stage's
-true device+link cost is visible — the production driver overlaps these,
+true device cost is visible — the production driver overlaps these,
 so the sum here is an upper bound on warm wall time.
 """
 import os

@@ -90,12 +90,17 @@ def test_watchdog_raises_on_wedged_batch(monkeypatch):
         def __getattr__(self, name):
             return getattr(self._inner, name)
 
-        def scan_segments(self, segs, lengths, full_prefix=False):
-            hang.wait(60)  # simulates a dropped device response
+        def scan_segments(self, segs, lengths):
+            hang.wait(60)  # simulates a device call that never returns
             raise AssertionError("watchdog did not fire")
 
+        def scan_segments_packed(self, segs, lengths):
+            return self.scan_segments(segs, lengths)
+
     monkeypatch.setenv("FASIM_WATCHDOG_S", "2")
-    monkeypatch.setenv("FASIM_PREWARM", "0")
+    # release the wedged stage thread once the watchdog has fired, so
+    # the driver's executors can shut down
+    threading.Timer(5, hang.set).start()
     scans = rules.scan_list(0, 0)
     work = [batched._Work(0, 0, rec.seq[:640])
             for rec in fasta.read_dna(p.file1path)]

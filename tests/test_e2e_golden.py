@@ -21,8 +21,8 @@ GOLDEN = os.path.join(ORACLE, "golden")
     ("meg3_sub3", "meg3sub3.fa", "MEG3.fa", []),
     # exact SIM engine (-F) on truncated inputs (full demo takes ~2 min)
     ("h19F_trunc", "testDNAt.fa", "H19t.fa", ["-F", "-lg", "40"]),
-    # truncated NEAT1 (long-query family; full 22.7 knt parity is verified
-    # on TPU hardware against oracle/golden/neat1, see scripts/verify_tpu)
+    # truncated NEAT1 (long-query family; full 22.7 knt parity against
+    # oracle/golden/neat1 runs on the GPU in chip_smoke.py)
     ("neat1t", "testDNA.fa", "NEAT1t.fa", []),
     # -F with the SIM forward scan on device (kernels/sim_dev.py) and
     # the host replaying only the node list + extraction

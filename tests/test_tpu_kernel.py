@@ -1,10 +1,9 @@
-"""Device engines vs NumPy golden engine.
+"""Device engine vs NumPy golden engine.
 
-The XLA engine runs on the CPU backend here and shares its dataflow with
-the Pallas TPU kernel (same recurrence, same padding/masking rules); the
-Pallas kernel itself is verified bit-exact on real TPU hardware by
-scripts/verify_tpu.py (Pallas interpret mode can wedge on the host
-platform, so it is not exercised in CI).
+The engine runs its plain XLA passes on the CPU backend here; on a GPU
+the same engine runs the CUDA kernels, whose decomposition is tested in
+test_gpu_kernels.py and whose exact parity at real widths is checked on
+the card by chip_smoke.py.
 """
 
 import numpy as np
@@ -12,7 +11,7 @@ import pytest
 
 from fasim_tpu import rules
 from fasim_tpu.kernels.batch_np import numpy_engine
-from fasim_tpu.kernels.tpu import apply_byte_break
+from fasim_tpu.kernels.common import PURE_OR_PAD, apply_byte_break
 from fasim_tpu.kernels.xla import XlaScanEngine
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
@@ -146,8 +145,7 @@ def test_fused_disabled_on_impure_input():
     thresh_lc2, cm_lc2 = _scan_segments_reference(eng, batch_lc, lengths_lc)
     np.testing.assert_array_equal(thresh_lc, thresh_lc2)
     np.testing.assert_array_equal(cm_lc, cm_lc2)
-    from fasim_tpu.kernels.tpu import _PURE_OR_PAD
-    assert not _PURE_OR_PAD[seg_lc].all()
+    assert not PURE_OR_PAD[seg_lc].all()
 
 
 def test_apply_byte_break():

@@ -116,69 +116,10 @@ def test_window_pass_reverse_terminate(rng):
             assert int(out[r, 2]) - int(offs[r]) == rr, (lanes, r)
 
 
-def test_pallas_window_kernel_matches_xla(rng):
-    """Pallas window kernel (interpret mode) == XLA window pass, forward
-    and reverse configurations."""
-    from fasim_tpu.kernels.tpu import TpuScanEngine
-
-    m = 143
-    rna = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, m)]
-    xla = XlaScanEngine(rna)
-    xla.setup_windows(rna)
-    tpu = TpuScanEngine(rna, interpret=True)
-    tpu.setup_windows(rna)
-    tpu.win_rows = 8  # force multi-group packing
-    R, W = 21, 128
-    codes = rng.integers(0, 5, (R, W)).astype(np.uint8)
-    rlens = rng.integers(4, W + 1, R).astype(np.int32)
-    offs = rng.integers(0, m // 2, R).astype(np.int32)
-    terms = np.where(rng.random(R) < 0.5, -1,
-                     rng.integers(5, 60, R)).astype(np.int32)
-    mreals = (m + rng.integers(0, 16, R)).astype(np.int32)
-    for rev in (False, True):
-        a = np.asarray(xla.window_pass(codes, offs, terms, rlens, mreals,
-                                       rev=rev))
-        b = tpu.window_pass(codes, offs, terms, rlens, mreals, rev=rev)
-        np.testing.assert_array_equal(a, b)
-
-
-def test_pallas_window_kernel_v1_fallback(rng):
-    """The v1 transposed kernel (FASIM_WIN_V1 fallback) stays exact."""
-    from fasim_tpu.kernels.tpu import TpuScanEngine
-
-    m = 143
-    rna = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, m)]
-    xla = XlaScanEngine(rna)
-    xla.setup_windows(rna)
-    tpu = TpuScanEngine(rna, interpret=True)
-    import os
-
-    os.environ["FASIM_WIN_V1"] = "1"
-    try:
-        tpu.setup_windows(rna)
-    finally:
-        del os.environ["FASIM_WIN_V1"]
-    assert not tpu.win_v2
-    tpu.win_rows = 8
-    R, W = 13, 128
-    codes = rng.integers(0, 5, (R, W)).astype(np.uint8)
-    rlens = rng.integers(4, W + 1, R).astype(np.int32)
-    offs = rng.integers(0, m // 2, R).astype(np.int32)
-    terms = np.where(rng.random(R) < 0.5, -1,
-                     rng.integers(5, 60, R)).astype(np.int32)
-    mreals = (m + rng.integers(0, 16, R)).astype(np.int32)
-    for rev in (False, True):
-        a = np.asarray(xla.window_pass(codes, offs, terms, rlens, mreals,
-                                       rev=rev))
-        b = tpu.window_pass(codes, offs, terms, rlens, mreals, rev=rev)
-        np.testing.assert_array_equal(a, b)
-
-
 def test_window_pass_specs_parity(rng):
-    """Production specs interface: Pallas (interpret) == XLA, and both
-    equal the direct codes interface, on a realistic mixed fwd/rev spec
-    batch with on-device window building."""
-    from fasim_tpu.kernels.tpu import TpuScanEngine
+    """Production specs interface == the direct codes interface on a
+    realistic mixed fwd/rev spec batch, and == the golden striped pass
+    row by row (window codes built from the segment batch + LUTs)."""
     from fasim_tpu.kernels.xla import build_window_codes
 
     m = 131
@@ -187,9 +128,6 @@ def test_window_pass_specs_parity(rng):
     xla = XlaScanEngine(rna)
     xla.setup_scans(scans)
     xla.setup_windows(rna)
-    tpu = TpuScanEngine(rna, interpret=True)
-    tpu.setup_scans(scans)
-    tpu.setup_windows(rna)
     S, N = 4, 640
     segs = np.zeros((S, N), np.uint8)
     lens = np.array([640, 503, 640, 77], np.int32)
@@ -202,10 +140,9 @@ def test_window_pass_specs_parity(rng):
         "scan_idx": rng.integers(0, len(scans), R).astype(np.int32),
         "dirn": np.where(rng.random(R) < 0.5, 1, -1).astype(np.int32),
         "rlens": rng.integers(4, 120, R).astype(np.int32),
-        "offs": rng.integers(0, m // 2, R).astype(np.int32),
-        "terms": np.where(rng.random(R) < 0.5, -1,
-                          rng.integers(5, 60, R)).astype(np.int32),
-        "mreals": (m + rng.integers(0, 16, R)).astype(np.int32),
+        "offs": np.zeros(R, np.int32),
+        "terms": np.full(R, -1, np.int32),
+        "mreals": np.full(R, _ru(m, 16), np.int32),
     }
     # keep window reads inside the segment
     base = np.empty(R, np.int32)
@@ -218,24 +155,28 @@ def test_window_pass_specs_parity(rng):
         else:
             base[r] = rng.integers(w - 1, n)
     spec["base"] = base
-    for rev in (False, True):
-        a = np.asarray(xla.window_pass_specs(segs, lens, spec, rev=rev))
-        b = tpu.window_pass_specs(segs, lens, spec, rev=rev)
-        np.testing.assert_array_equal(a, b)
-        # direct-codes cross-check
-        lut_s, _, is_tr = xla._scan_luts
-        codes = build_window_codes(segs, lens, lut_s, is_tr, spec)
-        c = np.asarray(xla.window_pass(codes, spec["offs"], spec["terms"],
-                                       spec["rlens"], spec["mreals"],
-                                       rev=rev))
-        np.testing.assert_array_equal(a, c)
+    lut_s, _, is_tr = xla._scan_luts
+    codes = build_window_codes(segs, lens, lut_s, is_tr, spec)
+    q_idx = rules.SSW_ENC[rna]
+    a = np.asarray(xla.window_pass_specs(segs, lens, spec, rev=False))
+    c = np.asarray(xla.window_pass(codes, spec["offs"], spec["terms"],
+                                   spec["rlens"], spec["mreals"], rev=False))
+    np.testing.assert_array_equal(a, c)
+    for r in range(R):
+        best, ecol, erow, _ = kalign._sw_end_pass(
+            q_idx, codes[r, :spec["rlens"][r]].astype(np.int64), GAP_OPEN,
+            GAP_EXTEND, rules.SSW_MAT, 16, False, None)
+        assert (int(a[r, 0]), int(a[r, 1])) == (best, ecol), r
+        if best > 0:
+            assert int(a[r, 2]) == erow, r
 
 
 def test_pack_candidates_parity(rng):
-    """Device candidate packing (interpret-free jnp) == numpy mirror, and
-    packed peaks == full-colmax peaks."""
+    """Host candidate packing: packed peaks == full-colmax peaks (native),
+    with byte-saturated and overflowing rows, and the counts/positions
+    follow the threshold and byte-break rules."""
     from fasim_tpu import native
-    from fasim_tpu.kernels.tpu import _pack_candidates, pack_candidates_np
+    from fasim_tpu.kernels.common import pack_candidates_np
 
     S, T, N, K = 3, 6, 512, 16
     cm = rng.integers(0, 120, (S, T, N)).astype(np.uint8)
@@ -243,14 +184,17 @@ def test_pack_candidates_parity(rng):
     cm[1, 2, :] = 90  # overflow row (cnt >> K)
     thresh = rng.integers(50, 140, (S, T)).astype(np.int32)
     lengths = np.array([512, 400, 333], np.int32)
-    import jax.numpy as jnp
-
-    dp, dv, dc = _pack_candidates(jnp.asarray(thresh), jnp.asarray(cm),
-                                  jnp.asarray(lengths), k=K)
     hp, hv, hc = pack_candidates_np(thresh, cm, lengths, K)
-    np.testing.assert_array_equal(np.asarray(dc), hc)
-    np.testing.assert_array_equal(np.asarray(dp), hp)
-    np.testing.assert_array_equal(np.asarray(dv), hv)
+    # byte break: nothing at or after the first saturated column
+    assert (hp[0, 0][:min(hc[0, 0], K)] < 100).all()
+    assert hc[1, 2] > K
+    for s in range(S):
+        for t in range(T):
+            ms = 4 * int(thresh[s, t]) // 5
+            k = min(int(hc[s, t]), K)
+            assert (hv[s, t, :k].astype(np.int32) > ms).all()
+            np.testing.assert_array_equal(hv[s, t, :k],
+                                          cm[s, t, hp[s, t, :k]])
     for s in range(S):
         full = native.segment_peaks(cm[s], N, thresh[s], int(lengths[s]))
         if (hc[s] > K).any():
@@ -291,63 +235,3 @@ def test_align_chain_matches_align_window_py(rng):
             assert got.cigar == golden.cigar
             n_checked += 1
     assert n_checked >= 10
-
-
-def test_window_pass_specs_fwd_v3(rng):
-    """The v3 forward-specialized per-lane kernel == XLA == the v2
-    per-column kernel on uniform production forward specs, across all
-    width classes."""
-    from fasim_tpu.kernels.tpu import TpuScanEngine, _WCLASSES
-
-    m = 131
-    m16 = _ru(m, 16)
-    rna = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, m)]
-    scans = rules.scan_list(0, 0)
-    xla = XlaScanEngine(rna)
-    xla.setup_scans(scans)
-    xla.setup_windows(rna)
-    tpu = TpuScanEngine(rna, interpret=True)
-    tpu.setup_scans(scans)
-    tpu.setup_windows(rna)
-    assert tpu.win_v3
-    # small buckets keep interpret-mode runtime sane; rows pad to R
-    R = 16
-    tpu._win_R = {k: R for k in tpu._win_R}
-    tpu.WIN_BUCKETS = {w: (R,) + v[1:]
-                       for w, v in tpu.WIN_BUCKETS.items()}
-    S, N = 3, 512
-    segs = np.zeros((S, N), np.uint8)
-    lens = np.array([512, 301, 77], np.int32)
-    for i in range(S):
-        segs[i, :lens[i]] = np.frombuffer(b"ACGTN", np.uint8)[
-            rng.integers(0, 5, lens[i])]
-    rows = 11
-    # one spec batch per width class, incl. the 196 production maximum
-    for wmax in sorted(_WCLASSES):
-        wlo = max(4, wmax // 2 + 1)
-        whi = min(wmax, 196)
-        spec = {
-            "seg_idx": rng.integers(0, S, rows).astype(np.int32),
-            "scan_idx": rng.integers(0, len(scans), rows).astype(np.int32),
-            "dirn": np.ones(rows, np.int32),
-            "rlens": rng.integers(wlo, whi + 1, rows).astype(np.int32),
-            "offs": np.zeros(rows, np.int32),
-            "terms": np.full(rows, -1, np.int32),
-            "mreals": np.full(rows, m16, np.int32),
-        }
-        base = np.empty(rows, np.int32)
-        for r in range(rows):
-            n = lens[spec["seg_idx"][r]]
-            w = min(int(spec["rlens"][r]), int(n))
-            spec["rlens"][r] = w
-            base[r] = rng.integers(0, n - w + 1)
-        spec["base"] = base
-        a = np.asarray(xla.window_pass_specs(segs, lens, spec, rev=False))
-        n0 = tpu.n_v3_calls
-        b = tpu.window_pass_specs(segs, lens, spec, rev=False)
-        assert tpu.n_v3_calls == n0 + 1  # the v3 path actually ran
-        np.testing.assert_array_equal(a, b)
-        tpu.win_v3 = False
-        c = tpu.window_pass_specs(segs, lens, spec, rev=False)
-        tpu.win_v3 = True
-        np.testing.assert_array_equal(a, c)
